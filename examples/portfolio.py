@@ -1,6 +1,6 @@
 """Markowitz portfolio optimization (reference
 examples/doc/chap8/portfolio.py): a risk/return tradeoff sweep solved
-with coneqp — and, TPU-natively, the whole sweep solved in ONE batched
+with coneqp — and, batched, the whole sweep solved in ONE
 call via vmap (kvxopt_tpu.parallel)."""
 
 import numpy as np
@@ -28,7 +28,7 @@ def main(n=8, nmu=16):
         returns.append(float(pbar @ x))
         risks.append(float(np.sqrt(x @ S @ x)))
 
-    # the same sweep as one batched TPU program
+    # the same sweep as one batched device program
     B = nmu
     Ps = jnp.asarray(np.stack([mu * S for mu in mus]))
     qs = jnp.asarray(np.tile(-pbar, (B, 1)))

@@ -1,15 +1,19 @@
 """Weak-scaling measurement for the tensor-parallel KKT factor.
 
 Runs the full-cone sharded kktsolver (parallel/sharded.py
-sharded_kkt_solver) on 1/2/4/8 virtual CPU devices with FIXED WORK PER
-DEVICE (rows grow with the device count), timing one factor(W)+solve
-round trip — the per-IPM-iteration unit of work.  Ideal weak scaling is
-constant time per step as devices are added.
+sharded_kkt_solver) on 1/2/4/8 of JAX's devices (as many as there are)
+with FIXED WORK PER DEVICE (rows grow with the device count), timing one
+factor(W)+solve round trip — the per-IPM-iteration unit of work.  Ideal
+weak scaling is constant time per step as devices are added.
 
-On the virtual CPU mesh all "devices" share one host's cores, so this
-validates the collective structure and measures overhead, not real ICI
-bandwidth; re-run on a real slice for hardware numbers (BASELINE.json
-north-star: >= 0.8 efficiency at 2 hosts).
+On GPUs it measures the real interconnect.  To rehearse on the CPU, give
+the host several virtual devices:
+
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+        python examples/weak_scaling_sharded.py
+
+where all "devices" share one host's cores, so it validates the
+collective structure and measures overhead, not bandwidth.
 
 Usage: python examples/weak_scaling_sharded.py [rows_per_dev] [n]
 """
@@ -18,17 +22,12 @@ import os
 import sys
 import time
 
-os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
-                           " --xla_force_host_platform_device_count=8")
-
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_enable_x64", True)
-
 import numpy as np
+
+import kvxopt_tpu  # noqa: F401  (enables x64)
 
 
 def measure(ndev, rows_per_dev, n, reps=5):
@@ -73,7 +72,7 @@ def main():
     t1 = None
     print(f"rows/device={rows_per_dev} n={n}")
     print("ndev  rows    factor+solve ms   weak-scaling eff")
-    for ndev in (1, 2, 4, 8):
+    for ndev in (d for d in (1, 2, 4, 8) if d <= len(jax.devices())):
         t = measure(ndev, rows_per_dev, n)
         if t1 is None:
             t1 = t

@@ -1,6 +1,6 @@
-"""kvxopt_tpu — a TPU-native convex optimization framework.
+"""kvxopt_tpu — a convex optimization framework for accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of kvxopt
+A from-scratch JAX/XLA re-design with the capabilities of kvxopt
 (a CVXOPT fork): dense/sparse matrix algebra, cone programming
 (conelp/coneqp/lp/qp/socp/sdp), nonlinear convex solvers (cp/cpl/gp),
 Nesterov-Todd scaling, Mehrotra predictor-corrector, pluggable KKT

@@ -1,6 +1,6 @@
 """Sparse subsystem: host-side CSC canonicalization and the symbolic /
 numeric factorization objects shared by the amd/umfpack/klu/cholmod API
-modules, plus the TPU-side structured factorization kernels."""
+modules, plus the device-side structured factorization kernels."""
 
 import numpy as np
 import scipy.sparse as _sp

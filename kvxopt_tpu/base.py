@@ -7,7 +7,7 @@ src/C/dense.c — the `matrix` object with column-major storage, typecodes
 `spmatrix` CCS object; src/C/base.c — sparse()/spdiag(), elementwise math,
 mixed dense/sparse gemv/gemm/syrk/axpy, norm).  Where the reference needs
 ~10k lines of C for speed, this build keeps the *host-side container*
-semantics in numpy/scipy (column-major) and ships compute to TPU JAX: every
+semantics in numpy/scipy (column-major) and ships compute to JAX: every
 matrix converts to a device array with `.to_jax()` / `jnp.asarray`, and
 all solver-facing code paths accept these types via `__array__`.
 

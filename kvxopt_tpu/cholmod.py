@@ -8,11 +8,11 @@ read at call time (cholmod.c:50-108): options['supernodal'] != 0 demands
 positive definiteness (LL' semantics, ArithmeticError otherwise);
 options['supernodal'] == 0 permits indefinite LDL'.
 
-Supernodal DEVICE path (the TPU-native equivalent of CHOLMOD's
+Supernodal DEVICE path (the device equivalent of CHOLMOD's
 supernodal numeric phase, cholmod.c:50-108): with
 options['supernodal'] != 0 and options['device'] truthy ('auto' uses the
 device whenever the default jax backend is an accelerator), numeric
-factorization runs the tile-supernodal MXU kernel (ops/tile_chol.py —
+factorization runs the tile-supernodal kernel (ops/tile_chol.py —
 one lax.scan over the block-column op table): symbolic tile analysis
 happens once, repeated `numeric(A, F)` calls are device-side value-only
 refactorization.  The device path serves every sys code 0..8 of
@@ -124,7 +124,7 @@ class CholSymbolic:
 
     def _factorize_device(self, cp, ri, vx):
         """Supernodal numeric factorization on device: tile-pattern
-        symbolic analysis once, then the lax.scan MXU numeric kernel
+        symbolic analysis once, then the lax.scan numeric kernel
         (ops/tile_chol.py); repeat calls are device refactorization."""
         import jax
         import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Cone algebra for symmetric cones K = R^l_+ x Q^q1 x ... x S^s1_+ x ...
 
-TPU-native re-implementation of the capability of the reference's cone
+Accelerator re-implementation of the capability of the reference's cone
 kernels (reference: src/C/misc_solvers.c — scale/scale2/pack/unpack/sdot/
 snrm2/sprod/sinv/max_step — and their Python fallbacks in
 src/python/misc.py:250-1053).  The design is functional rather than
@@ -17,7 +17,7 @@ doc/source/coneprog.rst): a cone vector u of dims (l, q, s) is a flat array
 Semidefinite blocks are stored as *full* symmetric matrices so that plain
 elementwise dot products equal the trace inner product — this avoids the
 reference's packed-storage gymnastics (misc_solvers.c:404-544) and keeps
-every operation MXU/VPU friendly.
+every operation dense and batched.
 
 The Nesterov-Todd scaling W (reference misc.py:250 compute_scaling) is
 represented as a pytree `NTScaling`:
@@ -324,7 +324,7 @@ def max_step(dims: ConeDims, x):
 def max_step2(dims: ConeDims, u, v):
     """max_step of two cone vectors with the eigendecomposition batched
     across both (one eigvalsh instance in the graph instead of two —
-    XLA TPU expands each eigh into a large subprogram, so instance count
+    XLA expands each eigh into a large subprogram, so instance count
     drives compile time)."""
     both = jax.vmap(lambda w: max_step(dims, w))(jnp.stack([u, v]))
     return both[0], both[1]
@@ -383,10 +383,10 @@ def _svd_batched(B, method: str = "eigh"):
     """Batched SVD B = U diag(sig) V' of square (c, m, m) blocks.
 
     method='eigh' (default) computes it via the eigendecomposition of the
-    Gram matrix B'B — XLA's TPU svd expands to a far larger subprogram
-    than eigh (~16 s vs ~2 s compile per instance), and the IPM's
-    iterative refinement absorbs the normal-equations accuracy loss
-    (~eps * cond) in the final iterations.  method='svd' uses
+    Gram matrix B'B — XLA's svd can expand to a far larger subprogram
+    than eigh, and the IPM's iterative refinement absorbs the
+    normal-equations accuracy loss (~eps * cond) in the final
+    iterations.  method='svd' uses
     jnp.linalg.svd for full accuracy (options['sscaling'] = 'svd')."""
     if method == "svd":
         U, sig, Vt = jnp.linalg.svd(B)
@@ -405,7 +405,7 @@ def compute_scaling(dims: ConeDims, s, z, method: str = "eigh"):
     compute_scaling (misc.py:250); unlike the reference we recompute W from
     (s, z) every iteration instead of incrementally updating it
     (update_scaling, misc.py:422) — same mathematics, and the extra
-    factorizations are cheap on the MXU.
+    factorizations are cheap dense work.
 
     Returns (W, lmbda) with W z = W^{-T} s = lmbda.
     """

@@ -3,17 +3,16 @@
 The reference library (kvxopt, a CVXOPT fork) is a double-precision CPU
 library; its solver tolerances (abstol 1e-7, reltol 1e-6, feastol 1e-7 —
 reference src/python/coneprog.py:440-454) require float64 accumulation
-somewhere in the pipeline.  TPUs natively compute in f32/bf16 on the MXU and
-emulate f64 in software, so this build uses a *mixed* strategy:
+somewhere in the pipeline:
 
 - ``default_dtype`` — dtype used for solver state and factorizations.
-  float64 by default (exact parity with the reference on CPU, emulated-f64 on
-  TPU).
-- ``compute_dtype`` — dtype used by the performance kernels (batched block
-  Cholesky, Pallas kernels).  float32 by default; results are corrected by
+  float64 by default (exact parity with the reference).
+- ``compute_dtype`` — dtype of the float32 factorizations inside the
+  mixed-precision KKT strategies; their results are corrected by
   iterative refinement carried out in ``default_dtype``.
 
-x64 is enabled at import time (opt out with KVXOPT_TPU_NO_X64=1).
+x64 is enabled at import time (opt out with KVXOPT_TPU_NO_X64=1).  Every
+solve runs on JAX's default device.
 """
 
 import os
@@ -23,37 +22,25 @@ import jax
 if not os.environ.get("KVXOPT_TPU_NO_X64"):
     jax.config.update("jax_enable_x64", True)
 
-# Keep the host XLA backend registered alongside the TPU backend: the
-# solver front ends route sub-MXU-scale problems (tiny single-instance
-# IPMs whose f64 programs are emulation- and dispatch-bound on TPU) to
-# the host executor — see `dispatch_device`.  This widens an explicitly
-# pinned single-platform setting (e.g. JAX_PLATFORMS=tpu) as a side
-# effect of importing the library; set KVXOPT_TPU_HOST_DISPATCH=0 to
-# opt out and keep the pinned platform list untouched (host dispatch is
-# then disabled for this process).
-try:
-    if os.environ.get("KVXOPT_TPU_HOST_DISPATCH", "1") != "0":
-        _plat = jax.config.jax_platforms
-        if _plat and "cpu" not in _plat.split(","):
-            jax.config.update("jax_platforms", _plat + ",cpu")
-except Exception:  # never make the host path a requirement
-    pass
-
-# On TPU, f32 matmuls default to bfloat16 passes — far too coarse for
-# interior-point iterations.  Force true-f32 matmul precision (the f64
+# On the GPU an f32 matmul defaults to TF32 (about three decimal digits),
+# far too coarse for interior-point iterations and for the exact-split
+# products of ops/ozaki.py.  Force true-f32 matmul precision (the f64
 # path is unaffected; opt out with KVXOPT_TPU_FAST_MATMUL=1).
 if not os.environ.get("KVXOPT_TPU_FAST_MATMUL"):
     jax.config.update("jax_default_matmul_precision", "highest")
 
 # Persistent compilation cache: IPM programs are large and the first
-# compile per shape is expensive (especially through remote-compile
-# toolchains); cache them across processes.  The directory is
-# fingerprinted by host CPU features + jax version: XLA:CPU entries are
-# AOT executables for the machine that compiled them, and LOADING one
-# on a host with a different feature set segfaults/SIGILLs (observed:
-# a full-suite run deserialized a stale entry from a wider-AVX512/AMX
-# machine and crashed inside compilation_cache.get_executable_and_time;
-# the cpu_aot_loader warning says exactly this).
+# compile per shape is expensive.  JAX_COMPILATION_CACHE_DIR, when set,
+# is used as it is (JAX reads it itself).  Otherwise the cache lives in
+# the checkout, under .jax_cache/<fingerprint>, a fixed path so repeat
+# runs hit.  The fingerprint is host CPU features + jax version: XLA:CPU
+# entries are AOT executables for the machine that compiled them, and
+# loading one on a host with a different feature set can crash.
+CACHE_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
+
+
 def _cache_fingerprint():
     import hashlib
     feats = ""
@@ -63,23 +50,23 @@ def _cache_fingerprint():
                 if line.startswith("flags"):
                     feats = " ".join(sorted(line.split(":")[1].split()))
                     break
-    except Exception:
+    except OSError:
         import platform
         feats = platform.processor() or platform.machine()
     return hashlib.sha256(
         (feats + "|" + jax.__version__).encode()).hexdigest()[:12]
 
 
-try:
-    _cache_dir = os.environ.get(
-        "KVXOPT_TPU_CACHE", os.path.expanduser("~/.cache/kvxopt_tpu_jax"))
-    _cache_dir = os.path.join(_cache_dir, _cache_fingerprint())
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # cache is an optimization, never a requirement
-    pass
+def cache_dir():
+    """The persistent compilation cache directory in effect."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(CACHE_ROOT, _cache_fingerprint()))
+
+
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", cache_dir())
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import jax.numpy as jnp  # noqa: E402  (after x64 flag)
 
@@ -88,88 +75,18 @@ compute_dtype = jnp.float32
 
 # Mixed-precision refinement matvec strategy: when True, the f64
 # operator products inside the chol2_mixed refinement loop run as
-# Ozaki-style exact-split f32 matmuls on the MXU (ops/ozaki.py) instead
-# of emulated-f64 matmuls.  Off by default until validated per backend;
+# Ozaki-style exact-split f32 matmuls (ops/ozaki.py) instead of f64
+# matmuls.  Off by default until validated per backend;
 # set KVXOPT_TPU_OZAKI=1 (or config.ozaki_refine = True) to enable.
 ozaki_refine = os.environ.get("KVXOPT_TPU_OZAKI", "0") == "1"
 
 # Mixed-precision FACTOR refinement: a one-shot exact-split-Gram
 # correction of the f32 Cholesky factor (kkt._mixed_core) that extends
 # the fast-contraction regime by ~1.5 decades of conditioning and
-# collapses the PCG refinement step count (~25 -> ~4 at cond 1e7 —
-# BENCHNOTES r4).  Read at trace time inside the mixed KKT strategies;
-# like ozaki_refine it is snapshotted into solver Options so cached
-# programs key on it.
+# collapses the PCG refinement step count.  Read at trace time inside
+# the mixed KKT strategies; like ozaki_refine it is snapshotted into
+# solver Options so cached programs key on it.
 factor_refine = os.environ.get("KVXOPT_TPU_FACREF", "1") == "1"
-
-
-# ---------------------------------------------------------------------------
-# Executor dispatch: accelerator for MXU-scale work, host XLA for the rest.
-#
-# The reference is a CPU library; its de-facto benchmarks include tiny
-# problems (boeing2: n=143; userguide SDP: n=3) where an interior-point
-# solve can never feed a systolic array — on TPU such f64 programs are
-# bound by software f64 emulation and program-dispatch latency, not
-# FLOPs.  A serving framework's job is to route each solve to the
-# executor where it is fastest: single-instance solves below
-# ``host_dispatch_threshold`` unknowns run on the host XLA backend
-# (same traced programs, same caching), everything else on the
-# accelerator.  Set the threshold to 0 (or KVXOPT_TPU_HOST_DISPATCH=0)
-# to force everything onto the accelerator.
-# ---------------------------------------------------------------------------
-
-# Calibrated on TPU v5e + the image's AVX-512 host (BENCHNOTES round
-# 4): single-instance f64 coneqp crosses over near n≈512 (n=512
-# m=1024: TPU 1.79× host; n=143: host 15× TPU).  BATCHED IPMs stay
-# host-bound much longer — the lockstep vmap makes every lane pay the
-# batch's worst-case iteration/refinement counts (B=16 n=512: host
-# 2.4 solves/s vs TPU mixed 0.5; B=8 n=1024: host 0.48 vs TPU 0.2) —
-# so batched solves use their own, higher threshold.
-host_dispatch_threshold = int(
-    os.environ.get("KVXOPT_TPU_HOST_DISPATCH", "512"))
-host_dispatch_threshold_batched = int(
-    os.environ.get("KVXOPT_TPU_HOST_DISPATCH_BATCHED", "2048"))
-
-
-def dispatch_device_batched(work_size):
-    """Executor for a BATCHED solve with ~work_size unknowns per
-    instance (see host_dispatch_threshold_batched)."""
-    if (host_dispatch_threshold <= 0
-            or host_dispatch_threshold_batched <= 0
-            or accelerator_is_host()):
-        return None
-    if work_size >= host_dispatch_threshold_batched:
-        return None
-    return host_device()
-
-
-def host_device():
-    """The host XLA device, or None when unavailable."""
-    try:
-        return jax.devices("cpu")[0]
-    except Exception:
-        return None
-
-
-def accelerator_is_host():
-    """True when the default backend IS the host (no accelerator)."""
-    try:
-        return jax.default_backend() == "cpu"
-    except Exception:
-        return True
-
-
-def dispatch_device(work_size):
-    """Pick the executor for a solve with ~``work_size`` unknowns in its
-    dense KKT system: None (default device) for accelerator-scale work,
-    the host XLA device for sub-threshold work.  Returns None whenever
-    host dispatch is disabled or the default backend is already the
-    host."""
-    if host_dispatch_threshold <= 0 or accelerator_is_host():
-        return None
-    if work_size >= host_dispatch_threshold:
-        return None
-    return host_device()
 
 
 def set_default_dtype(dtype):

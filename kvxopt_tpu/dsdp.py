@@ -29,8 +29,7 @@ binds), or 'DSDP_UNKNOWN'.  Set options['DSDP_UseConelp'] = 1 to route
 through the native conelp core instead (the pre-round-5 behavior).
 
 Problem sizes here are CPU-scale (the reference's DSDP is a CPU code);
-the iteration runs in numpy f64 on host, consistent with the executor-
-dispatch policy for sub-MXU workloads (docs/tpu.md)."""
+the iteration runs in numpy f64 on the host."""
 
 import numpy as np
 

@@ -4,7 +4,7 @@ dct/idct/dctn/idctn, dst/idst/dstn/idstn.
 The reference wraps FFTW and transforms dense matrices *in place*,
 column-wise for the 1-d transforms and row-major with a `dims` tuple for
 the N-d variants (fftw.c:37-80); the same calling conventions are kept
-here.  Transform kernels are scipy.fft on host matrices (TPU-side FFTs are
+here.  Transform kernels are scipy.fft on host matrices (device FFTs are
 available through jnp.fft for device arrays; the facade's in-place
 contract is host-side by nature).
 

@@ -3,7 +3,7 @@ weibull / setseed / getseed).
 
 The reference wraps GSL's Mersenne generator; here the generators are
 jax.random (threefry) driven — deterministic, splittable, and identical on
-CPU/TPU — returning dense `matrix` objects for facade parity and raw jax
+CPU/GPU — returning dense `matrix` objects for facade parity and raw jax
 arrays via the *_jax variants.
 """
 

@@ -1,6 +1,6 @@
 """Pluggable KKT factorization strategies.
 
-TPU-native equivalents of the reference's five KKT strategies
+Equivalents of the reference's five KKT strategies
 (reference src/python/misc.py: kkt_ldl :1055, kkt_ldl2 :1128, kkt_chol
 :1213, kkt_chol2 :1352, kkt_qr :1570).  Each strategy is a function
 
@@ -41,11 +41,9 @@ STRATEGIES = ("ldl", "ldl2", "chol", "chol2", "qr", "chol2_mixed",
 def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
                     reg: float = 0.0, ozaki=None, facref=None):
     """ozaki: None = follow config.ozaki_refine; True/False force the
-    exact-split refinement matvec for the mixed strategies.  Measured on
-    chip (BENCHNOTES r4): the split matvec wins ~2x for BATCHED mixed
-    refinement (many lanes amortize the slice matmuls) and loses for
-    single-instance matvec-shaped products, so the batched mixed driver
-    passes True and everything else defaults to the config flag."""
+    exact-split refinement matvec for the mixed strategies.  The batched
+    mixed driver passes True (many lanes amortize the slice matmuls);
+    everything else defaults to the config flag."""
     if name not in STRATEGIES:
         raise ValueError(f"unknown kktsolver {name!r}; expected one of "
                          f"{STRATEGIES}")
@@ -62,7 +60,7 @@ def make_kkt_solver(name, dims: ConeDims, G, A=None, P=None, mnl: int = 0,
           # chol2_mixed without the per-instance f64-factor fallback:
           # the vmap-friendly variant (under vmap lax.cond lowers to a
           # select, so the fallback branch would execute — and pay the
-          # emulated-f64 factorization — for EVERY lane).  Batch drivers
+          # f64 factorization — for EVERY lane).  Batch drivers
           # pair it with a host-side f64 re-solve of failed lanes
           # (parallel/batch.py batched_qp_solver_mixed).
           "chol2_mixed_nofb": partial(_kkt_chol2_mixed,
@@ -94,20 +92,10 @@ def _keff(P, H, n, dtype):
 def _chol_spd(K, reg):
     if reg:
         K = K + reg * jnp.eye(K.shape[0], dtype=K.dtype)
-    if K.dtype == jnp.float32:
-        # vmap-collapsible factor: under a vmapped IPM this becomes one
-        # lockstep Pallas kernel call for the whole scenario batch
-        # (ops/ipm_chol.py); single-instance and f64 traces fall back
-        # to XLA with the identical factor structure
-        from .ops.ipm_chol import chol_factor
-        return chol_factor(K)
     return jnp.linalg.cholesky(K)
 
 
 def _chol_solve(L, b):
-    if isinstance(L, tuple):
-        from .ops.ipm_chol import chol_solve
-        return chol_solve(L[0], L[1], b)
     y = solve_triangular(L, b, lower=True)
     return solve_triangular(L.T, y, lower=False)
 
@@ -119,7 +107,7 @@ def _chol_solve(L, b):
 def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
     """Eliminate uz, factor K = P + H + Gs'Gs (Gs = W^{-T} Geff), then a
     Schur complement over A.  The workhorse strategy: two Cholesky
-    factorizations, everything MXU-shaped."""
+    factorizations, everything matmul-shaped."""
     n, p = G.shape[1], A.shape[0]
     Geff = _geff(G, Df, mnl)
     Gs = cones.wtw_scale_cols(edims, W, Geff)
@@ -150,10 +138,10 @@ def _kkt_chol2(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None):
 
 
 # ---------------------------------------------------------------------------
-# chol2_mixed — the TPU performance configuration: factor in float32 on the
-# MXU, recover float64 accuracy by iterative refinement against the f64
-# condensed matrix.  (TPUs emulate f64 in software; f32 Cholesky is the
-# fast path.  No reference counterpart — this is a build-side strategy.)
+# chol2_mixed — factor in float32, recover float64 accuracy by iterative
+# refinement against the f64 condensed matrix.  (No reference counterpart
+# — this is a build-side strategy; whether it beats all-f64 chol2 depends
+# on the device's f64 rate.)
 # ---------------------------------------------------------------------------
 
 def _hoist_closure(fn, *ops_flat):
@@ -251,16 +239,16 @@ def cond_any(pred, true_fn, false_fn, *ops):
 def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
                 rtol_factor=500.0, fallback=True, keq64_build=None):
     """Adaptive mixed-precision SPD solver core: equilibrated float32
-    Cholesky (the TPU MXU fast path) + float64 iterative refinement
-    against the *operator* kmul, with an automatic float64-factor
-    fallback when the measured refinement contraction says f32 carries
+    Cholesky + float64 iterative refinement against the *operator* kmul,
+    with an automatic float64-factor fallback when the measured
+    refinement contraction says f32 carries
     too little information (cond approaching 1/eps_f32 — the regime that
     capped the round-1 implementation at ~1e-6).
 
     - kmul(x): exact (f64) matrix-vector product with the SPD matrix —
       operator form, so the dense f64 matrix need never be built on the
-      fast path (emulated f64 matmuls are the TPU bottleneck).
-    - K32: the dense f32 matrix to factor (built with MXU matmuls).
+      fast path.
+    - K32: the dense f32 matrix to factor (built with f32 matmuls).
     - k64_build(): dense f64 matrix, evaluated under lax.cond only when
       the fallback factorization is actually needed.
 
@@ -273,40 +261,30 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
     L32 = _chol_spd(Keq32, 0.0)
     dsc = dsc32.astype(dtype)
 
-    D32 = L0m = None
+    D32 = None
     if keq64_build is not None:
-        # One-shot FACTOR refinement (BENCHNOTES r4): with
-        # E = Keq - L0 L0' computed to ~1e-12 (exact-split MXU Gram,
+        # One-shot FACTOR refinement: with
+        # E = Keq - L0 L0' computed to ~1e-12 (exact-split Gram,
         # ops/ozaki.ata), the lower-triangular correction
         # D = L0 · Φ(L0^{-1} E L0^{-T}) (Φ = strict lower + half diag)
         # makes (L0+D)(L0+D)' ≈ Keq to O(eps32²).  The refined
         # preconditioner is applied FIRST-ORDER around the base solve
         # S0 = (L0 L0')^{-1}:
         #   (MM')^{-1} r ≈ u − S0(D·L0'u + L0·D'u),  u = S0 r
-        # — all-f32 ops, and S0 reuses the fast factor representation.
+        # — all-f32 ops, and S0 reuses the f32 factor.
         # This extends the fast-contraction regime by ~1.5 decades of
         # conditioning, collapsing the PCG refinement step count at
         # cond ~1e7.  Setup: one split Gram + two n-RHS f32 triangular
         # solves + one f32 GEMM per factorization.
         Keq64 = keq64_build(dsc)
         from .ops.ozaki import ata as _ata
-        L0m = L32[0] if isinstance(L32, tuple) else L32
-        L0_64 = L0m.astype(dtype)
+        L0_64 = L32.astype(dtype)
         E32 = (Keq64 - _ata(jnp.swapaxes(L0_64, -1, -2))).astype(
             K32.dtype)
-        if isinstance(L32, tuple):
-            # single-sweep solves that collapse under vmap into one
-            # Pallas n-RHS substitution kernel (ops/ipm_chol.py) —
-            # XLA's per-lane expander here is what forced facref off
-            # for the vmapped batch drivers (VERDICT r4 #4)
-            from .ops.ipm_chol import tri_lower_solve
-            F1 = tri_lower_solve(L0m, L32[1], E32)
-            F = tri_lower_solve(L0m, L32[1], F1.T).T
-        else:
-            F1 = solve_triangular(L0m, E32, lower=True)
-            F = solve_triangular(L0m, F1.T, lower=True).T
+        F1 = solve_triangular(L32, E32, lower=True)
+        F = solve_triangular(L32, F1.T, lower=True).T
         Phi = jnp.tril(F, -1) + 0.5 * jnp.diag(jnp.diagonal(F))
-        D32 = L0m @ Phi
+        D32 = L32 @ Phi
 
     def m_apply(r):
         # approximate K^{-1} r through the equilibrated f32 factor
@@ -315,7 +293,7 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
         if D32 is None:
             return dsc * _chol_solve(L32, r32).astype(dtype)
         u = _chol_solve(L32, r32)
-        w = D32 @ (L0m.T @ u) + L0m @ (D32.T @ u)
+        w = D32 @ (L32.T @ u) + L32 @ (D32.T @ u)
         z = u - _chol_solve(L32, w)
         return dsc * z.astype(dtype)
 
@@ -343,10 +321,9 @@ def _mixed_core(kmul, K32, dtype, k64_build, max_refine=30,
         # Preconditioned CG on K x = b with the equilibrated f32 factor
         # as the preconditioner.  Each step costs one exact (f64) kmul +
         # one f32 factor solve, like plain iterative refinement, but PCG
-        # contracts at the square-root rate — on TPU the f64 kmul is an
-        # emulated matvec (~1.5 ms for a 16-lane batch) and utterly
-        # dominates the step, so halving the step count halves the KKT
-        # solve (BENCHNOTES round 3).
+        # contracts at the square-root rate, so where the f64 kmul
+        # dominates the step, halving the step count halves the KKT
+        # solve.
         bn = jnp.linalg.norm(b)
         tol = rtol_factor * eps64 * jnp.maximum(bn, 1e-300)
 
@@ -429,9 +406,9 @@ def mixed_spd_solver(K, reg=0.0, cdt=None, max_refine=30,
 def _kkt_chol2_mixed(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
                      fallback=True, ozaki=None, facref=None):
     """Condensed normal equations with the adaptive mixed-precision SPD
-    solver.  The TPU performance configuration at the reference's 1e-7
-    tolerances (coneprog.py:440-454): the O(N n^2) normal-equations
-    product K = P + Gs'Gs is formed in float32 on the MXU; float64 work
+    solver at the reference's 1e-7 tolerances (coneprog.py:440-454): the
+    O(N n^2) normal-equations product K = P + Gs'Gs is formed in
+    float32; float64 work
     on the fast path is limited to O(N n) operator products inside the
     refinement loop; the dense f64 K is built (and factored) under
     lax.cond only in the rare ill-conditioned iterations."""
@@ -448,10 +425,7 @@ def _kkt_chol2_mixed(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
     if ozaki is None:
         ozaki = config.ozaki_refine
     if ozaki:
-        # exact-split f64 products on the MXU (ops/ozaki.py): the
-        # refinement matvec is the wall of the mixed-precision path on
-        # TPU (BENCHNOTES round 3) — emulated-f64 matmuls never touch
-        # the MXU, the split form does
+        # exact-split f64 products from f32 matmuls (ops/ozaki.py)
         from .ops.ozaki import OzakiOperator
         gop = OzakiOperator(Gs)
         pop = OzakiOperator(P) if P is not None else None
@@ -483,22 +457,16 @@ def _kkt_chol2_mixed(dims, edims, G, A, P, mnl, reg, W, H=None, Df=None,
             K = K + reg * jnp.eye(n, dtype=G.dtype)
         return K
 
-    if facref == "vmap":
-        # vmapped-driver sentinel (parallel/batch.py _vmap_facref):
-        # refine exactly when the batched trace will collapse the
-        # setup's two n-RHS triangular solves into the Pallas kernel
-        from .ops.ipm_chol import _pallas_ok
-        facref = config.factor_refine and _pallas_ok(n, cdt)
-    elif facref is None:
+    if facref is None:
         facref = config.factor_refine
     keq64_build = None
     if facref:
         from .ops.ozaki import ata as _ata
 
         def keq64_build(dsc):
-            # equilibrated f64 K at ~1e-12 accuracy WITHOUT emulated-f64
-            # matmuls: the Gram rides the MXU as an exact-split product,
-            # the rest is elementwise f64 (cheap even emulated)
+            # equilibrated f64 K at ~1e-12 accuracy WITHOUT f64 matmuls:
+            # the Gram is an exact-split f32 product, the rest is
+            # elementwise f64
             K = _keff(P, H, n, G.dtype) + _ata(Gs)
             if reg:
                 K = K + reg * jnp.eye(n, dtype=G.dtype)

@@ -252,8 +252,7 @@ def write_mps(problem, f):
 
     Beyond the reference writer (modeling.py:2640 — which emits every
     canonical row as L/E with an empty RANGES section and all-FR
-    BOUNDS), structural fidelity is recovered from the canonical form
-    (VERDICT r4 #8):
+    BOUNDS), structural fidelity is recovered from the canonical form:
       - singleton G rows (one nonzero) become real BOUNDS entries
         (LO/UP/FX/MI; remaining free columns stay FR),
       - row pairs with exactly opposite coefficients (a'x <= hi and

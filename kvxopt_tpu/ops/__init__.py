@@ -1,43 +1,5 @@
-"""TPU compute kernels (Pallas) for the hot paths: batched block
-Cholesky for condensed KKT systems, and kernel helpers."""
+"""Device compute helpers for the hot paths: the tile-sparse Cholesky
+behind cholmod's device path, and the exact-split products of
+ops.ozaki."""
 
-from .chol import batched_cholesky, cholesky_kernel_available  # noqa: F401
-from .chol_ls import (batched_cholesky_ls, chol_solve_ls,  # noqa: F401
-                      cholesky_ls_available)
 from .tile_chol import TileCholesky, tile_pattern_from_sparse  # noqa: F401
-
-
-def _use_ls(A):
-    import jax
-    import jax.numpy as jnp
-    return (jax.default_backend() != "cpu" and A.ndim == 3
-            and A.dtype == jnp.float32)
-
-
-def best_cholesky(A):
-    """Batched lower Cholesky via the fastest available implementation:
-    the lockstep Pallas kernel (ops.chol_ls, slope-measured 2.3-2.5x
-    XLA's expander at B=16 n=1024 f32) on TPU, XLA elsewhere."""
-    import jax.numpy as jnp
-    if _use_ls(A):
-        return batched_cholesky_ls(A)[0]
-    return jnp.linalg.cholesky(A)
-
-
-def best_chol_factor_solve(A):
-    """(factor, solve) pair for batched SPD systems: factor(A) returns
-    an opaque factor object; solve(f, rhs) solves A x = rhs for rhs of
-    shape (B,n) or (B,n,k).  Uses the fused Pallas factor+solve kernels
-    on TPU (the solve streams L once per sweep and reuses the factor's
-    diagonal-block inverses), XLA's cho_factor/cho_solve elsewhere."""
-    import jax
-    import jax.numpy as jnp
-    from jax.scipy.linalg import cho_solve
-    if _use_ls(A):
-        L, Dinv = batched_cholesky_ls(A)
-        return (L, Dinv), lambda f, r: chol_solve_ls(f[0], f[1], r)
-    L = jnp.linalg.cholesky(A)
-
-    def solve(L, rhs):
-        return jax.vmap(lambda Li, bi: cho_solve((Li, True), bi))(L, rhs)
-    return L, solve

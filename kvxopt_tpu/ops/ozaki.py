@@ -1,20 +1,17 @@
-"""Ozaki-style exact-split matvec: f64-accurate products from f32/MXU
+"""Ozaki-style exact-split matvec: f64-accurate products from f32
 matmuls.
 
-On TPU, float64 matmuls are software-emulated elementwise and cannot use
-the MXU; BENCHNOTES (round 3) measured the emulated-f64 refinement
-matvec as the wall of the batched mixed-precision IPM (~1.5 ms per
-16-lane (512x256) operator product vs 0.08 ms for the f32 factor+solve
-it refines).  This module removes that wall with the error-free
-splitting scheme of Ozaki et al. (2012), "Error-free transformations of
-matrix multiplication":
+On hardware whose float64 matmuls are slow or emulated, the f64
+refinement matvec can dominate the batched mixed-precision IPM.  This
+module replaces it with the error-free splitting scheme of Ozaki et al.
+(2012), "Error-free transformations of matrix multiplication":
 
   - each f64 operand is scaled row-wise (shared power-of-two exponent
     per contraction fiber) and split into `nslices` chunks of `nbits`
     mantissa bits at fixed bit positions (block-fixed-point),
   - chunk-by-chunk products then accumulate EXACTLY in f32: every chunk
-    is bf16-representable (nbits <= 8 significant bits), so the MXU's
-    bf16 multiplies are exact, and partial sums stay below 2^24 quanta
+    is bf16-representable (nbits <= 8 significant bits), so bf16, TF32
+    or f32 multiplies are exact, and partial sums stay below 2^24 quanta
     because nbits = floor((24 - log2 n) / 2),
   - the f32 partial results are summed in (emulated, elementwise — that
     part is cheap) f64 and rescaled.
@@ -26,8 +23,8 @@ with the defaults (nbits 8, nslices 6 at n=256) ~1e-14, far below the
 1e-10 the mixed-precision refinement loop needs.
 
 No reference counterpart: the reference runs on f64 CPU BLAS
-(SURVEY.md L0); this is TPU-native machinery for hitting the
-reference's 1e-7 tolerances (coneprog.py:440-454) at MXU speed.
+(SURVEY.md L0); this is build-side machinery for hitting the
+reference's 1e-7 tolerances (coneprog.py:440-454) at f32 matmul speed.
 """
 
 from __future__ import annotations
@@ -49,9 +46,9 @@ def default_nslices(nbits: int, target_bits: int = 52) -> int:
     52 bits ≈ full f64: the matvec error floor (~2^-52 of the per-row
     scale) then sits BELOW the mixed-precision PCG exit tolerance
     (rtol_factor*eps64*||b||), so the refinement loop terminates via its
-    tolerance test instead of stalling through the 8-step window
-    (ADVICE r3: at the old 44 bits the floor sat above the tolerance and
-    every solve burned up to 8 extra matvecs)."""
+    tolerance test instead of stalling through the 8-step window (at 44
+    bits the floor sat above the tolerance and every solve burned up to
+    8 extra matvecs)."""
     return int(math.ceil(target_bits / nbits))
 
 
@@ -109,7 +106,7 @@ def matvec(Aslices, Ascale, x, nbits: int):
 
 def ata(A, nbits: int | None = None, target_bits: int = 40):
     """Exact-split Gram matrix: A' A to ~`target_bits` of f64 accuracy
-    from f32/MXU matmuls (the GEMM counterpart of `matvec`).
+    from f32 matmuls (the GEMM counterpart of `matvec`).
 
     Used by the mixed-precision FACTOR refinement (kkt._mixed_core):
     the factor-residual E = K - L0 L0' only needs ~eps32^2 relative
@@ -135,7 +132,7 @@ def ata(A, nbits: int | None = None, target_bits: int = 40):
 
 class OzakiOperator:
     """Precomputed exact-split form of a dense f64 matrix for repeated
-    y = A @ x and z = A' @ w products at f64 accuracy on the MXU.
+    y = A @ x and z = A' @ w products at f64 accuracy from f32 matmuls.
 
     Splitting costs one pass of elementwise f64 work per slice and is
     done once (e.g. per IPM KKT factorization); each product then costs

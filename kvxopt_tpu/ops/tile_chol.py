@@ -1,12 +1,12 @@
 """Tile-sparse (supernodal-style) Cholesky with device-side numeric
 factorization.
 
-The TPU-native replacement for CHOLMOD's supernodal numeric phase
+The device replacement for CHOLMOD's supernodal numeric phase
 (reference cholmod.c symbolic/numeric split): symbolic analysis happens
 once on the host over a fixed tile pattern; the numeric factorization is
-a single jitted XLA program of dense-tile MXU operations whose schedule
+a single jitted XLA program of dense-tile operations whose schedule
 (gather/scatter index tables per block column) is baked in at trace time.
-Re-running `factor` with new values is TPU-side numeric refactorization
+Re-running `factor` with new values is device-side numeric refactorization
 — the KLU/CHOLMOD fast-refactor contract on device.
 
 Storage: the lower-triangular nonzero TILES of L (after fill analysis)
@@ -19,7 +19,7 @@ live in one (NT, ts, ts) array.  Per block column j the program does
 
 Intended for block-banded / power-grid-like patterns where the tile
 pattern stays sparse; for small n (<= a few thousand) the dense batched
-path (ops.chol / jnp.linalg.cholesky) is usually faster.
+path (jnp.linalg.cholesky) is usually faster.
 """
 
 from __future__ import annotations

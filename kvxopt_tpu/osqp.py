@@ -2,7 +2,7 @@
 bridge: qp in cvxopt form, solve in the native l <= Ax <= u form).
 
 Where the reference wraps the OSQP C library, this module implements the
-OSQP algorithm itself in JAX — a TPU-native first-order method: one
+OSQP algorithm itself in JAX — a jittable first-order method: one
 Cholesky factorization of P + sigma I + rho A'A, then a jittable
 lax.while_loop of matrix-vector ADMM iterations with over-relaxation.
 

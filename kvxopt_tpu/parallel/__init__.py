@@ -2,12 +2,12 @@
 instances) and sharded KKT linear algebra over a device mesh.
 
 The reference has no distributed runtime (SURVEY.md section 2.3); its only
-parallelism is BLAS threading.  The TPU-native equivalent introduced here:
+parallelism is BLAS threading.  The multi-device equivalent introduced here:
 
 - `batch`: many independent IPMs at once — vmap over the pure coneqp core,
-  sharded over a 'batch' mesh axis with pjit.
+  sharded over a 'batch' mesh axis with jit.
 - `sharded`: tensor-parallel KKT — G row-sharded over a 'kkt' axis, the
-  normal-equations product formed with psum over ICI.
+  normal-equations product formed with psum.
 """
 
 from .batch import (  # noqa: F401

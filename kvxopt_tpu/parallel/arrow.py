@@ -1,7 +1,7 @@
 """Arrow (bordered block-diagonal) KKT factorization.
 
 The structured equivalent of the reference's sparse KKT factorizations
-for scenario-coupled problems (the BASELINE.json 'ACTIVSg2000 scenario
+for scenario-coupled problems (the BASELINE.md 'ACTIVSg2000 scenario
 batch' shape): B independent diagonal blocks coupled through a small set
 of shared variables,
 
@@ -10,11 +10,11 @@ of shared variables,
         [           D_B  C_B ]
         [ C_1' ...  C_B'  E  ]
 
-Factorization: batched Cholesky of the D_i (one vmap'd MXU program — or
+Factorization: batched Cholesky of the D_i (one vmap'd program — or
 sharded over a 'kkt' mesh axis), Schur complement
-S = E - sum_i C_i' D_i^{-1} C_i reduced with a psum over ICI, Cholesky of
+S = E - sum_i C_i' D_i^{-1} C_i reduced with a psum, Cholesky of
 S replicated.  Solves are batched triangular solves plus a border solve.
-This is the TPU-native replacement for KLU/CHOLMOD on arrow-structured
+This is the device replacement for KLU/CHOLMOD on arrow-structured
 power-grid matrices: symbolic structure is the (B, nb, nc) blocking
 itself, numeric refactorization is just calling factor again.
 """

@@ -1,10 +1,10 @@
 """Scenario batching: solve many cone QPs at once.
 
-The TPU analogue of the reference's 'run many CPU solves' workload
-(BASELINE.json config 'ACTIVSg2000 scenario batch').  A batch of problem
-instances with identical shapes is solved by one jitted program: vmap over
-the pure coneqp core, optionally pjit-sharded over a 'batch' mesh axis so
-scenarios spread across chips with zero communication.
+The batched analogue of the reference's 'run many CPU solves' workload
+(the 'ACTIVSg2000 scenario batch' config of BASELINE.md).  A batch of
+problem instances with identical shapes is solved by one jitted program:
+vmap over the pure coneqp core, optionally sharded over a 'batch' mesh
+axis so scenarios spread across devices with zero communication.
 """
 
 from __future__ import annotations
@@ -98,51 +98,13 @@ def make_lp_solver(dims, kktsolver=None, options=None):
     return solve
 
 
-def _dispatched_batch(jitted, nargs_for_n, kktsolver=None):
-    """Wrap a jitted batched solver with call-time executor dispatch:
-    when the per-instance KKT size is below config.host_dispatch_threshold
-    the whole batch runs on the host XLA backend (one compiled vmapped
-    program there beats both the emulated-f64 TPU path and the
-    reference's sequential CPU solves — BENCHNOTES round 4); at
-    accelerator scale the call runs wherever its inputs live.
-
-    Mixed-precision strategies never host-dispatch: their f32
-    factorizations exist to ride the MXU, and the host executor would
-    run the f32 factor + refinement loop slower than its own f64
-    Cholesky."""
-    from .. import config
-    mixed = isinstance(kktsolver, str) and "mixed" in kktsolver
-
-    def solve(*args):
-        n = args[nargs_for_n].shape[-1]
-        dev = None if mixed else config.dispatch_device_batched(int(n))
-        if dev is None:
-            return jitted(*args)
-        # only already-committed device arrays need an explicit move;
-        # host (numpy) inputs are placed by default_device for free —
-        # the unconditional device_put cost ~9% of a B=64 n=16 batch
-        args = tuple(jax.device_put(a, dev)
-                     if isinstance(a, jax.Array) and a.committed
-                     else a for a in args)
-        with jax.default_device(dev):
-            return jitted(*args)
-
-    return solve
-
-
 def _vmap_facref(options):
-    """Size-aware factor refinement for VMAPPED drivers: the 'vmap'
-    sentinel makes _kkt_chol2_mixed enable it exactly when the Pallas
-    n-RHS substitution kernel will collapse the setup's two triangular
-    solves (n >= 256 f32 on an accelerator, ops/ipm_chol.py).  With the
-    kernel the B=16 n=256 two-pass workload measures FASTER with
-    refinement on (5.7 vs 5.3 solves/s, r5 chip session); below the
-    kernel threshold XLA's per-lane expander regression (BENCHNOTES r4:
-    2-5x) still applies, so those sizes stay off.  Explicit True/False
-    still wins."""
+    """Factor refinement for VMAPPED drivers: off unless asked for.  Its
+    setup runs two n-RHS triangular solves per lane, which XLA expands
+    lane by lane under vmap.  Explicit True/False still wins."""
     o = options if isinstance(options, Options) else Options(
         **(options or {}))
-    return o._replace(facref="vmap") if o.facref is None else o
+    return o._replace(facref=False) if o.facref is None else o
 
 
 def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
@@ -150,7 +112,7 @@ def batched_lp_solver(dims, kktsolver=None, options=None, mesh=None):
     solve_one = make_lp_solver(dims, kktsolver, _vmap_facref(options))
     vsolve = jax.vmap(solve_one)
     if mesh is None:
-        return _dispatched_batch(jax.jit(vsolve), 0, kktsolver)
+        return jax.jit(vsolve)
     shard = NamedSharding(mesh, P("batch"))
     return jax.jit(vsolve, in_shardings=(shard,) * 3)
 
@@ -159,12 +121,11 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     """Two-pass batched mixed-precision QP driver (host-orchestrated).
 
     Pass 1 solves every lane in one vmapped program with the
-    'chol2_mixed_nofb' KKT strategy: float32 MXU factorizations plus
+    'chol2_mixed_nofb' KKT strategy: float32 factorizations plus
     float64 operator-form iterative refinement, with NO per-lane f64
     fallback — under vmap `lax.cond` lowers to a select, so the fallback
-    branch of plain 'chol2_mixed' executes (and pays the emulated-f64
-    factorization) for every lane, which is why the round-2 vmapped
-    mixed path lost to the all-f64 one (BENCHNOTES round 2).
+    branch of plain 'chol2_mixed' would execute (and pay the f64
+    factorization) for every lane.
 
     Lanes whose pass-1 status is not 'optimal' (rare: the refinement
     stalls only when cond(K) approaches 1/eps_f32) are re-solved on the
@@ -177,9 +138,8 @@ def batched_qp_solver_mixed(dims, options=None, mesh=None, with_eq=False):
     anyway)."""
     from ..solvers.coneprog import OPTIMAL
     # force the exact-split refinement matvec for the vmapped fast pass:
-    # the batch lanes amortize the slice matmuls on the MXU (measured
-    # ~2x over emulated-f64 matvecs at B=16 n=256 — BENCHNOTES r4);
-    # explicit options still win
+    # the batch lanes amortize the slice matmuls; explicit options still
+    # win
     o = options if isinstance(options, Options) else Options(
         **(options or {}))
     if o.ozaki is None:
@@ -226,30 +186,22 @@ def batched_qp_solver_seq(dims, kktsolver="chol2_mixed", options=None,
 
     Under vmap every lane pays the batch's WORST-CASE iteration and
     refinement counts (while_loops run until all lanes' conds are
-    false, and `lax.cond` lowers to a select so both branches execute)
-    — measured on chip, the vmapped mixed path loses ~4x of its
-    single-instance throughput at n>=512 (BENCHNOTES r4 crossover
-    table).  `lax.map` keeps each instance's own trip counts AND a
+    false, and `lax.cond` lowers to a select so both branches
+    execute).  `lax.map` keeps each instance's own trip counts AND a
     real cond, so the per-instance f64-factor fallback of plain
     'chol2_mixed' works — no two-pass host orchestration needed.  Use
-    this for accelerator batches of LARGE instances; use
-    `batched_qp_solver`/`_mixed` for small-instance batches (which the
-    executor dispatch sends to the host anyway).
+    this for batches of LARGE instances; use
+    `batched_qp_solver`/`_mixed` for small-instance batches.
 
     `group` > 1 pipelines that many instances per map step (vmap inside
     lax.map); the f64-factor fallback stays a REAL cond at group
-    granularity (`kkt.cond_any` guards it on any(lane bad)).  Measured
-    on chip at B=8-16 n=512 (BENCHNOTES r5): g=2 is throughput-neutral
-    vs g=1 (~2.4-2.6 solves/s either way — the per-iteration wall at
-    this size is f64 refinement work, not MXU occupancy; the exact-split
-    ozaki matvec buys ~8% at g=2 and is defaulted on for groups), and
-    g>=4 inherits the vmapped-mixed lockstep fragility on hard
-    late-stage iterates (lanes can hit the non-finite-step exit).  Keep
-    the default group=1 for production; the knob exists for
-    experiments."""
+    granularity (`kkt.cond_any` guards it on any(lane bad)); the
+    exact-split ozaki matvec is defaulted on for groups.  g>=4 inherits
+    the vmapped-mixed lockstep fragility on hard late-stage iterates
+    (lanes can hit the non-finite-step exit).  Keep the default group=1
+    for production; the knob exists for experiments."""
     if group > 1:
-        # grouped lanes amortize the ozaki slice matmuls (measured
-        # 2.56-2.61 vs 2.35-2.39 solves/s at g=2 n=512, BENCHNOTES r5)
+        # grouped lanes amortize the ozaki slice matmuls
         o = options if isinstance(options, Options) else Options(
             **(options or {}))
         if o.ozaki is None:
@@ -289,7 +241,7 @@ def batched_qp_solver(dims, kktsolver=None, options=None, mesh=None,
                                with_eq)
     vsolve = jax.vmap(solve_one)
     if mesh is None:
-        return _dispatched_batch(jax.jit(vsolve), 1, kktsolver)
+        return jax.jit(vsolve)
     spec = P("batch")
     shard = NamedSharding(mesh, spec)
     return jax.jit(vsolve, in_shardings=(shard,) * 4,

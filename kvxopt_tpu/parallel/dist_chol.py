@@ -1,20 +1,19 @@
 """Block-cyclic distributed Cholesky over a mesh axis.
 
-For a single KKT system too large for one chip's HBM, the n x n SPD
+For a single KKT system too large for one device's memory, the n x n SPD
 matrix is partitioned into nb-wide block columns distributed cyclically
 over the devices of a mesh axis (block column j lives on device
 j mod ndev — the classic ScaLAPACK layout, which keeps every device busy
-as the factorization front moves right).  The axis may be a tuple
-(('dcn', 'ici')) for a hierarchical multi-host mesh: the per-step panel
-broadcast is a psum over the tuple, which XLA lowers to an ICI reduction
-within each slice plus a DCN all-reduce across hosts.
+as the factorization front moves right).  The axis may be a tuple of
+mesh axis names: the per-step panel broadcast is then a psum over every
+device the axes span.
 
 Per factorization step k (static loop, one per block column):
   1. the owner's current column k is broadcast (one masked psum),
   2. every device redundantly factors the nb x nb diagonal block and
      forms the panel L[k:, k] (O(n nb^2) flops — negligible),
   3. every device applies the rank-nb trailing update to the block
-     columns it owns (the O(n^2 nb) MXU work, fully parallel).
+     columns it owns (the O(n^2 nb) matmul work, fully parallel).
 
 Communication: nblk psums of an (n, nb) panel per factorization and
 nblk psums of an (n,) vector per triangular solve — the same volume a
@@ -22,8 +21,7 @@ nblk psums of an (n,) vector per triangular solve — the same volume a
 
 There is no reference counterpart: the reference's largest
 factorizations are single-host CHOLMOD calls (SURVEY.md section 2.3);
-this is the TPU-native scale-out path for KKT matrices beyond one chip
-(ROADMAP items 5/9, BASELINE.json multi-host north star).
+this is the scale-out path for KKT matrices beyond one device.
 """
 
 from __future__ import annotations

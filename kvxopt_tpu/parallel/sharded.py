@@ -2,11 +2,11 @@
 
 The condensed KKT system K = P + G' W^{-1} W^{-T} G is a sum over
 constraint rows, so with G row-sharded over a 'kkt' mesh axis each device
-forms its local normal-equations contribution and a single psum over ICI
+forms its local normal-equations contribution and a single psum
 reduces K; the (small, replicated) Cholesky factorization follows locally.
 This mirrors how the reference's structure-exploiting custom kktsolvers
 (reference tests/test_custom_kkt.py:11-31) reduce the KKT solve, but
-distributed — it is the TPU-native analogue of the reference's
+distributed — it is the multi-device analogue of the reference's
 "three levels of customization" kktsolver contract
 (reference src/python/coneprog.py:286-402).
 
@@ -55,9 +55,8 @@ class _ConeShards:
         self.mesh = mesh
         self.axis = axis
         self.dims = dims
-        # axis may be one mesh axis name or a tuple of names (a
-        # hierarchical ('dcn', 'ici') mesh: psum over the tuple lowers to
-        # an intra-slice ICI reduction followed by a DCN all-reduce)
+        # axis may be one mesh axis name or a tuple of names (psum over
+        # the tuple reduces over every device the axes span)
         self.ndev = (int(np.prod([mesh.shape[a] for a in axis]))
                      if isinstance(axis, tuple) else mesh.shape[axis])
         self.n = G.shape[1]

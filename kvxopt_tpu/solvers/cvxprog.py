@@ -16,11 +16,11 @@ given the reference's oracle contract (cvxprog.py:68-110):
 
 The nonlinear multipliers are scaled exactly like extra 'l' entries (the
 reference's 'dnl' blocks), so the cone machinery is reused with
-dims.with_extra_l(mnl).  The TPU-native twist: `oracle_from_function`
+dims.with_extra_l(mnl).  The JAX-native twist: `oracle_from_function`
 builds the full (f, Df, H) contract from a plain JAX function via autodiff
 (jacfwd/hessian) — the reference's hand-coded derivative contract becomes
 optional.  gp's log-sum-exp oracle is hand-coded (softmax gradient,
-diag(w) - ww' Hessian) for MXU efficiency.
+diag(w) - ww' Hessian) so it stays matmul-shaped.
 
 The outer loop runs eagerly (Python) because each iteration re-linearizes
 the oracle; every inner operation (scaling, KKT factor/solve, cone ops) is
@@ -98,24 +98,6 @@ def oracle_from_function(f, x0, mnl=None):
 def cpl(c, F, G=None, h=None, dims=None, A=None, b=None, kktsolver=None,
         options=None, xnewcopy=None, xdot=None, xscal=None, xaxpy=None,
         ynewcopy=None, ydot=None, yscal=None, yaxpy=None):
-    """Front end over `_cpl_impl`: routes the solve to the right
-    executor (host XLA for sub-MXU-scale problems, accelerator
-    otherwise; cp and gp delegate here, so they inherit the routing).
-    See `_cpl_impl` for semantics."""
-    from .coneprog import _veclen, _dispatch_ctx
-    custom = any(f is not None for f in (xnewcopy, xdot, xscal, xaxpy,
-                                         ynewcopy, ydot, yscal, yaxpy))
-    n = None if (custom or callable(G)) else _veclen(c)
-    with _dispatch_ctx(n):
-        return _cpl_impl(c, F, G, h, dims, A, b, kktsolver, options,
-                         xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
-                         yscal, yaxpy)
-
-
-def _cpl_impl(c, F, G=None, h=None, dims=None, A=None, b=None,
-              kktsolver=None, options=None, xnewcopy=None, xdot=None,
-              xscal=None, xaxpy=None, ynewcopy=None, ydot=None,
-              yscal=None, yaxpy=None):
     """Nonlinear cone program with linear objective (reference
     cvxprog.py:35).
 
@@ -607,27 +589,6 @@ def _cpl_impl(c, F, G=None, h=None, dims=None, A=None, b=None,
 def cp(F, G=None, h=None, dims=None, A=None, b=None, kktsolver=None,
        options=None, xnewcopy=None, xdot=None, xscal=None, xaxpy=None,
        ynewcopy=None, ydot=None, yscal=None, yaxpy=None):
-    """Front end over `_cp_impl`: routes the solve to the right executor
-    BEFORE any array placement (the oracle's x0 and every epigraph
-    operator must live on the chosen device).  See `_cp_impl`."""
-    from .coneprog import _veclen, _dispatch_ctx
-    custom = any(f is not None for f in (xnewcopy, xdot, xscal, xaxpy))
-    n = None
-    if not custom:
-        try:
-            n = _veclen(F()[1])
-        except Exception:
-            n = None
-    with _dispatch_ctx(n):
-        return _cp_impl(F, G, h, dims, A, b, kktsolver, options,
-                        xnewcopy, xdot, xscal, xaxpy, ynewcopy, ydot,
-                        yscal, yaxpy)
-
-
-def _cp_impl(F, G=None, h=None, dims=None, A=None, b=None, kktsolver=None,
-             options=None, xnewcopy=None, xdot=None, xscal=None,
-             xaxpy=None, ynewcopy=None, ydot=None, yscal=None,
-             yaxpy=None):
     """Nonlinear objective: minimize f0(x) s.t. f_k(x) <= 0, Gx + s = h,
     Ax = b, via the epigraph transform onto cpl (reference
     cvxprog.py:1359,1767-1958).  F's value vector has mnl+1 entries with f0
@@ -807,23 +768,6 @@ def _cp_custom(F, G, h, dims, A, b, kktsolver, merged, dtype,
 
 def gp(K, F, g, G=None, h=None, A=None, b=None, kktsolver=None,
        options=None):
-    """Front end over `_gp_impl`: routes the solve to the right executor
-    before any array placement.  See `_gp_impl`."""
-    from .coneprog import _dispatch_ctx
-    try:
-        shp = getattr(F, "shape", None)
-        if shp is not None and not callable(shp):
-            n = int(shp[1])
-        else:
-            n = int(F.size[1])
-    except Exception:
-        n = None
-    with _dispatch_ctx(n):
-        return _gp_impl(K, F, g, G, h, A, b, kktsolver, options)
-
-
-def _gp_impl(K, F, g, G=None, h=None, A=None, b=None, kktsolver=None,
-             options=None):
     """Geometric program in convex (log-sum-exp) form (reference
     cvxprog.py:1967): minimize lse(F_0 x + g_0) s.t. lse(F_i x + g_i) <= 0,
     Gx <= h, Ax = b, where F's rows are partitioned by K.

@@ -3,7 +3,7 @@
 Reference: examples/book/chap6 (huber.py, tv.py, basispursuit.py,
 regsel.py), examples/book/chap7 (maxent.py, expdesign.py), and
 examples/doc/chap7/covsel.py.  The reference ships these as
-documentation; here each is solved TPU-natively and asserted against an
+documentation; here each is solved and asserted against an
 independent oracle (scipy, analytic optimality conditions, or duality),
 since the book publishes figures rather than numbers and the .bin data
 files are cvxopt pickles.  tv and covsel exercise paths nothing else

@@ -226,43 +226,3 @@ def test_lp_equilibrate_badly_scaled():
     ref = linprog(c, A_ub=G, b_ub=h, bounds=(None, None), method="highs")
     if ref.status == 0:
         np.testing.assert_allclose(float(c @ x), ref.fun, rtol=1e-5)
-
-
-def test_split_program_fallback_matches_fused():
-    """When the fused solve+finalize program is rejected by the compile
-    toolchain, solvers fall back to cached SPLIT programs (solve +
-    finalization) instead of the uncached eager path; results must be
-    identical.  Simulated by seeding the _FUSED_BAD registry."""
-    from kvxopt_tpu.solvers import coneprog as cp_mod
-    from kvxopt_tpu.solvers import lp, qp
-    from kvxopt_tpu.solvers._conelp import conelp as _conelp_fn
-    from kvxopt_tpu.cones import ConeDims
-
-    c = np.array([-4.0, -5.0])
-    G = np.array([[2.0, 1.0], [1.0, 2.0], [-1.0, 0.0], [0.0, -1.0]])
-    h = np.array([3.0, 3.0, 0.0, 0.0])
-    ref = lp(c, G, h)
-    P = np.eye(2)
-    qv = np.array([1.0, 1.0])
-    refq = qp(P, qv, G, h)
-
-    saved = set(cp_mod._FUSED_BAD)
-    try:
-        # poison every key so the fast fused path is skipped
-        class _All(set):
-            def __contains__(self, key):
-                return True
-        cp_mod._FUSED_BAD = _All()
-        sol = lp(c, G, h)
-        solq = qp(P, qv, G, h)
-    finally:
-        cp_mod._FUSED_BAD = saved
-    assert sol["status"] == "optimal" and solq["status"] == "optimal"
-    np.testing.assert_allclose(np.asarray(sol["x"]),
-                               np.asarray(ref["x"]), atol=1e-9)
-    np.testing.assert_allclose(sol["primal objective"],
-                               ref["primal objective"], atol=1e-9)
-    np.testing.assert_allclose(np.asarray(solq["x"]),
-                               np.asarray(refq["x"]), atol=1e-9)
-    for k in ("gap", "primal infeasibility", "dual infeasibility"):
-        assert abs(sol[k] - ref[k]) < 1e-9

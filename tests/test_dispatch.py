@@ -1,39 +1,17 @@
-"""Executor dispatch policy (config.dispatch_device and the solver
-front-end wiring).
-
-On the CPU-only test backend the dispatcher must be a no-op (the
-default backend IS the host), and the policy function must honor the
-threshold/override semantics the docs promise.
+"""Where a solve runs: on JAX's default device, and under a
+`jax.default_device` context on the device it names.
 """
 
 import numpy as np
 
 import jax
 
-from kvxopt_tpu import config, solvers
-
-
-def test_dispatch_noop_on_host_backend():
-    # tests run with jax_platforms=cpu: there is no distinct accelerator
-    assert config.accelerator_is_host()
-    assert config.dispatch_device(1) is None
-    assert config.dispatch_device(10 ** 9) is None
-
-
-def test_threshold_semantics(monkeypatch):
-    monkeypatch.setattr(config, "accelerator_is_host", lambda: False)
-    sentinel = object()
-    monkeypatch.setattr(config, "host_device", lambda: sentinel)
-    monkeypatch.setattr(config, "host_dispatch_threshold", 512)
-    assert config.dispatch_device(511) is sentinel
-    assert config.dispatch_device(512) is None
-    monkeypatch.setattr(config, "host_dispatch_threshold", 0)
-    assert config.dispatch_device(1) is None, "0 disables host dispatch"
+from kvxopt_tpu import solvers
 
 
 def test_solves_unaffected_by_dispatch_context():
     """A solve through the front end under an explicit default_device
-    context (what the dispatcher does) matches the plain solve."""
+    context matches the plain solve."""
     c = np.array([-4., -5.])
     G = np.array([[2., 1.], [1., 2.], [-1., 0.], [0., -1.]])
     h = np.array([3., 3., 0., 0.])

@@ -105,7 +105,7 @@ def test_kkt_with_nonlinear_block():
 
 
 def test_factor_refinement_extends_conditioning_range(monkeypatch):
-    """The one-shot factor correction (BENCHNOTES r4) lets the
+    """The one-shot factor correction lets the
     no-fallback mixed core solve cond~2e7 systems to f64 accuracy where
     the plain f32 preconditioner stalls."""
     from kvxopt_tpu import config as cfg

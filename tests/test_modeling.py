@@ -285,8 +285,8 @@ def test_nested_scalar_pwl_in_max():
     v = float(np.asarray(q.objective.value()).reshape(-1)[0])
     assert abs(v - (-2.0)) < 1e-5  # min sum(y) s.t. sum|y| <= 2
 
-    # triple nesting with a vector outer argument (ADVICE r3: flattening
-    # a single-block pwl whose pieces include a nested pwl_scalar):
+    # triple nesting with a vector outer argument (flattening a
+    # single-block pwl whose pieces include a nested pwl_scalar):
     # max(max(max(abs(x)), 0.5), x) elementwise, minimized via sum
     z = variable(3)
     r = op(sum(max(max(max(abs(z)), 0.5), z)),

@@ -1,5 +1,5 @@
 """Sparse-KKT LP through a custom kktsolver with host-side native
-refactorization (BASELINE.json config 'Sparse-KKT LP with bcsstk
+refactorization (BASELINE.md config 'Sparse-KKT LP with bcsstk
 structure').
 
 The architecture mirrors the reference's symbolic/numeric split

@@ -173,7 +173,7 @@ def test_ipm_with_tile_sparse_kkt_on_device():
 
 
 def test_cholmod_supernodal_device_bcsstk13():
-    """cholmod.numeric with options['device']=True runs the tile-MXU
+    """cholmod.numeric with options['device']=True runs the tile
     kernel on the real bcsstk13 pattern: factor identity PAP' = LL',
     solve round-trip, and device value-only refactorization (reference
     cholmod.c:50-108,218-294)."""
@@ -232,7 +232,7 @@ def test_cholmod_supernodal_device_bcsstk13():
 def test_conelp_through_tile_kkt():
     """conelp with a tile-supernodal KKT backend: a block-banded LP whose
     condensed normal equations K = G' W^{-2} G keep a sparse tile pattern;
-    the custom kktsolver factors K with the lax.scan MXU kernel and
+    the custom kktsolver factors K with the lax.scan tile kernel and
     matches the dense default path to 1e-6."""
     import jax.numpy as jnp
     from kvxopt_tpu.cones import ConeDims

@@ -2,20 +2,19 @@
 programs.
 
 The first solve of a given (shape, dims, kktsolver, options) key pays an
-XLA compile — seconds on the host toolchain, minutes on remote-compile
-TPU toolchains.  The persistent cache (config.py: jax_compilation_cache_dir,
-default ~/.cache/kvxopt_tpu_jax) makes that a one-time cost per machine;
-this tool pays it ahead of time for a list of standard shapes so that
-first user solves are warm.
+XLA compile — seconds to minutes.  The persistent cache (config.py:
+JAX_COMPILATION_CACHE_DIR when set, else <checkout>/.jax_cache/<host
+fingerprint>) makes that a one-time cost per machine; this tool pays it
+ahead of time for a list of standard shapes so that first user solves
+are warm.
 
 Usage:
     python tools/prewarm_cache.py                 # default shape set
     python tools/prewarm_cache.py 64x128 256x512  # LP shapes n x m
 
 Each shape compiles the conelp (lp) and coneqp (qp) fused programs for
-the default kktsolvers at default tolerances, on whichever executor the
-dispatch policy selects for that size — i.e., exactly the programs real
-solves will hit.
+the default kktsolvers at default tolerances, on JAX's default device —
+i.e., exactly the programs real solves will hit.
 """
 
 import sys
